@@ -1,4 +1,4 @@
-.PHONY: all native test test-tpu test-fast bench compat tables clean
+.PHONY: all native test smoke smoke-4 test-fast bench compat tables clean
 
 all: native
 
@@ -8,20 +8,20 @@ native:
 test: native
 	python -m pytest tests/ -q
 
-# Same suite against the real TPU chip (bounds auto-scale for bf16x3).
-test-tpu: native
-	MP3RGAIN_TPU_TESTS=1 python -m pytest tests/ -q
+# The card checks: the main path compiled for one GPU, compared with the
+# CPU path (tests marked `gpu` skip in the CPU suite above).
+smoke: native
+	python chip_smoke.py
+
+# The four-card data-parallel scan against a one-device mesh.
+smoke-4: native
+	python chip_smoke.py --four-cards
 
 test-fast: native
 	python -m pytest tests/ -q -x -k "not stress and not fuzz"
 
 bench: native
 	python bench.py
-
-# Precompile the scan pipelines for the common shape ladder (populates
-# jax's persistent compilation cache on stacks with stable cache keys).
-warmup: native
-	python tools/warmup.py
 
 compat: native
 	bash scripts/compatibility-test.sh

@@ -1,7 +1,7 @@
-"""mp3rgain_tpu — TPU-native batch audio-gain framework.
+"""mp3rgain_tpu — batch audio-gain framework on JAX (GPU).
 
 A ground-up rebuild of mp3rgain's capabilities (lossless MP3 gain surgery +
-ReplayGain 1.0 analysis) as a TPU-first pipeline:
+ReplayGain 1.0 analysis) as a device-first pipeline:
 
 - host C++ core for all byte-level work (frame sync, global_gain bit surgery,
   APEv2/ID3/Xing/MP4 handling, MP3 entropy decode front-end),

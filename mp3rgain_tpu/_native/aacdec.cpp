@@ -1,5 +1,5 @@
 // AAC-LC decode front-end: the host-side entropy + spectral-prep stage of
-// the TPU AAC decoder (ISO/IEC 14496-3 AAC Low Complexity).
+// the framework's AAC decoder (ISO/IEC 14496-3 AAC Low Complexity).
 //
 // Parses ADTS frames (SCE/CPE/LFE syntactic elements), decodes section
 // data, scalefactors, pulses, TNS and spectral Huffman data, requantizes

@@ -1,4 +1,4 @@
-// MP3 decode front-end: the host-side entropy stage of the TPU decoder.
+// MP3 decode front-end: the host-side entropy stage of the device decoder.
 //
 // Unpacks an entire MP3 file into dense per-granule-channel tensors that the
 // JAX/Pallas decode back-end consumes: side info fields, scalefactors, and
@@ -900,7 +900,7 @@ static int64_t unpack_light_impl(
                                : 0;
             const size_t ncopy = avail < nbytes ? avail : nbytes;
             memcpy(rmd, reservoir.data() + start_byte, ncopy);
-            // The packer (mg_entropy_pack3) reads at most
+            // The packer (mg_entropy_pack_flat) reads at most
             // ceil((p0 + p23 + 95)/32) words <= nbytes + 8 bytes of this
             // row; zero just past the copied extent instead of the whole
             // 528-byte stride (the tail memset was the bulk of the md
@@ -1113,117 +1113,50 @@ int64_t mg_mp3_unpack_light2(const uint8_t* data, size_t len, uint16_t* ip,
 }
 
 // Pack light-unpacked granule-channels into the entropy kernel's device
-// layout in one pass. The stream buffer is ragged at SUBGROUP
-// granularity: each block of `lanes` sorted granule-channels is split
-// into lanes/subg contiguous subgroups of `subg` lanes, and subgroup
-// (b, s)'s words live at flat word-group offset sg_off[b*nsg + s]
-// (units of one (8, subg) int32 group) in a packed (g_pad, 8, subg)
-// big-endian word buffer, with sg_w8[b*nsg + s] groups of capacity —
-// per-subgroup instead of per-block, so the device payload tracks the
-// true bitstream size of each 128-lane span of the sorted order (the
-// kernel re-assembles a block's scratch from nsg independent DMAs).
-// Three transfer-size/time refinements carried over from the earlier
-// per-block packer:
-//   - per-LANE word counts: only ceil((p0 + p23 + 95)/32) words of a
-//     lane's window are copied (the kernel's extract never reads further
-//     — max legal read is 28 bits past pend, inside the 64-bit slack);
-//     the remainder of the lane's column is zeroed, so capacity padding
-//     costs sequential stores, not strided copies;
-//   - k-outer transpose: for each word index k the whole (subg,) row is
-//     written contiguously while source rows stay hot in L2;
-//   - metadata ships bit-packed: 5 uint16 rows per lane (layout below,
-//     mirrored by entropy_kernel.Half) instead of 12+ full rows.
-// md_rows / meta_rows are per-ROW base pointers (uint64), so callers
-// never concatenate per-track arrays. order[r] >= n marks padding.
-//
-// Packed meta layout (entropy_kernel.py META_ROWS = 5 must match):
+// layout in one pass. Lanes are in sorted order (order[l] is the source
+// row of lane l; order[l] >= n marks padding). Lane l's window goes to
+// the flat big-endian word buffer at word offset woff[l], nw[l] words
+// long (the caller computes both: window bits + 64 bits of overreach
+// slack, clamped to the md row). Metadata ships bit-packed as 5 uint16
+// rows per block of `lanes` lanes, (nb, 5, lanes):
 //   w0: part3 bits p23[0:12] | lead bits p0[12:15] | count1 table[15]
 //   w1: big-value pairs bvp[0:9]  | region0 table group g0[9:13]
 //   w2: region pair bound r0p[0:9] | region1 table group g1[9:13]
 //   w3: region pair bound r1p[0:9] | region2 table group g2[9:13]
 //   w4: linbits l0[0:4] | l1[4:8] | l2[8:12]
-void mg_entropy_pack4(const uint64_t* md_rows, const uint64_t* meta_rows,
-                      int64_t n, int64_t meta_n, const int32_t* order,
-                      int64_t npad, int64_t lanes, int64_t subg,
-                      const int32_t* sg_off, const int32_t* sg_w8,
-                      int64_t md_stride, int64_t meta_rows_out,
-                      int32_t* buf, uint16_t* metab) {
-  const int64_t nwords_src = md_stride / 4;
-  const int64_t meta_stride = meta_rows_out * lanes;
-  const int64_t nb = npad / lanes;
-  const int64_t nsg = lanes / subg;
-  std::vector<const uint32_t*> rowp(static_cast<size_t>(subg));
-  std::vector<int32_t> rown(static_cast<size_t>(subg));
-  for (int64_t b = 0; b < nb; ++b) {
-    uint16_t* mb = metab + b * meta_stride;
-    for (int64_t s = 0; s < nsg; ++s) {
-      const int64_t sg = b * nsg + s;
-      const int64_t words = sg_w8[sg] * 8;
-      int32_t* bb = buf + static_cast<int64_t>(sg_off[sg]) * 8 * subg;
-      for (int64_t li = 0; li < subg; ++li) {
-        const int64_t l = s * subg + li;
-        const int64_t src = order[b * lanes + l];
-        if (src < n) {
-          rowp[li] = reinterpret_cast<const uint32_t*>(md_rows[src]);
-          const int32_t* m =
-              reinterpret_cast<const int32_t*>(meta_rows[src]);
-          // Lane's true word extent: window bits + 64-bit overreach
-          // slack.
-          int64_t nw =
-              (static_cast<int64_t>(m[LM_P0]) + m[LM_P23] + 95) >> 5;
-          if (nw > words) nw = words;
-          if (nw > nwords_src) nw = nwords_src;
-          rown[li] = static_cast<int32_t>(nw);
-          mb[0 * lanes + l] = static_cast<uint16_t>(
-              (m[LM_P23] & 0xFFF) | ((m[LM_P0] & 7) << 12) |
-              ((m[LM_GCNT] & 1) << 15));
-          mb[1 * lanes + l] = static_cast<uint16_t>(
-              (m[LM_BVP] & 511) | ((m[LM_G0] & 15) << 9));
-          mb[2 * lanes + l] = static_cast<uint16_t>(
-              (m[LM_R0P] & 511) | ((m[LM_G1] & 15) << 9));
-          mb[3 * lanes + l] = static_cast<uint16_t>(
-              (m[LM_R1P] & 511) | ((m[LM_G2] & 15) << 9));
-          mb[4 * lanes + l] = static_cast<uint16_t>(
-              (m[LM_L0] & 15) | ((m[LM_L1] & 15) << 4) |
-              ((m[LM_L2] & 15) << 8));
-        } else {
-          rowp[li] = nullptr;
-          rown[li] = 0;
-          for (int64_t j = 0; j < meta_rows_out; ++j)
-            mb[j * lanes + l] = 0;
-        }
-      }
-      (void)meta_n;
-      // Split the word range at the subgroup's min extent: below it
-      // every lane is active (branch-free gather+bswap the compiler
-      // can vectorize), above it the per-lane mask applies. Lanes are
-      // sorted by window bits within the subgroup, so min tracks the
-      // mean closely and most iterations take the branch-free form.
-      int32_t min_rown = rown[0];
-      for (int64_t li = 1; li < subg; ++li) {
-        if (rown[li] < min_rown) min_rown = rown[li];
-      }
-      int64_t k = 0;
-      for (; k < min_rown; ++k) {
-        int32_t* out = bb + k * subg;
-        for (int64_t li = 0; li < subg; ++li) {
-          uint32_t w;
-          memcpy(&w, rowp[li] + k, 4);
-          out[li] = static_cast<int32_t>(__builtin_bswap32(w));
-        }
-      }
-      for (; k < words; ++k) {
-        int32_t* out = bb + k * subg;
-        for (int64_t li = 0; li < subg; ++li) {
-          if (k < rown[li]) {
-            uint32_t w;
-            memcpy(&w, rowp[li] + k, 4);
-            out[li] = static_cast<int32_t>(__builtin_bswap32(w));
-          } else {
-            out[li] = 0;
-          }
-        }
-      }
+// (entropy_kernel.py META_ROWS and its field unpacking must match).
+// md_rows / meta_rows are per-ROW base pointers (uint64), so callers
+// never concatenate per-track arrays.
+void mg_entropy_pack_flat(const uint64_t* md_rows, const uint64_t* meta_rows,
+                          int64_t n, const int32_t* order, int64_t npad,
+                          int64_t lanes, const int32_t* woff,
+                          const int32_t* nw, int32_t* buf, uint16_t* metab) {
+  for (int64_t l = 0; l < npad; ++l) {
+    uint16_t* mb = metab + (l / lanes) * 5 * lanes + (l % lanes);
+    const int64_t src = order[l];
+    if (src >= n) {
+      for (int64_t j = 0; j < 5; ++j) mb[j * lanes] = 0;
+      continue;
+    }
+    const int32_t* m = reinterpret_cast<const int32_t*>(meta_rows[src]);
+    mb[0] = static_cast<uint16_t>((m[LM_P23] & 0xFFF) |
+                                  ((m[LM_P0] & 7) << 12) |
+                                  ((m[LM_GCNT] & 1) << 15));
+    mb[lanes] = static_cast<uint16_t>((m[LM_BVP] & 511) |
+                                      ((m[LM_G0] & 15) << 9));
+    mb[2 * lanes] = static_cast<uint16_t>((m[LM_R0P] & 511) |
+                                          ((m[LM_G1] & 15) << 9));
+    mb[3 * lanes] = static_cast<uint16_t>((m[LM_R1P] & 511) |
+                                          ((m[LM_G2] & 15) << 9));
+    mb[4 * lanes] = static_cast<uint16_t>((m[LM_L0] & 15) |
+                                          ((m[LM_L1] & 15) << 4) |
+                                          ((m[LM_L2] & 15) << 8));
+    const uint8_t* row = reinterpret_cast<const uint8_t*>(md_rows[src]);
+    int32_t* out = buf + woff[l];
+    for (int32_t k = 0; k < nw[l]; ++k) {
+      uint32_t w;
+      memcpy(&w, row + 4 * k, 4);
+      out[k] = static_cast<int32_t>(__builtin_bswap32(w));
     }
   }
 }

@@ -1,6 +1,6 @@
 // mp3rgain_tpu native host core — C ABI.
 //
-// Host-side byte-level engine of the TPU framework: MP3 frame sync and
+// Host-side byte-level engine of the framework: MP3 frame sync and
 // global_gain bit surgery, APEv2 tag engine, MP4 box engine, and the MP3
 // decode front-end (side info / scalefactors / Huffman / bit reservoir)
 // that produces dense granule tensors for the JAX/Pallas decode back-end.

@@ -15,6 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from . import backend
 from .decode import aac_frontend as af
 from .decode import aac_synthesis
 from .ops import histogram as hi
@@ -152,16 +153,10 @@ def prepare_batch_arrays_aac(unpacked: list, n_channels: int):
 def use_device_prep() -> bool:
     """Route AAC spectral prep (requantize/PNS/stereo) on device.
 
-    Default: compiled TPU only — the host-requant f16 path stays the
-    oracle on CPU (and its PNS noise values are the decoder-specific
-    host LCG). Override with MP3RGAIN_AAC_DEVICE_PREP=1/0 (tests use 1
-    to run the device prep on CPU)."""
-    import os as _os
-
-    env = _os.environ.get("MP3RGAIN_AAC_DEVICE_PREP")
-    if env is not None:
-        return env not in ("0", "false", "")
-    return jax.default_backend() == "tpu"
+    backend.aac_device_prep() decides: on by default on the GPU; on the
+    CPU the host-requant f16 path stays the oracle (and its PNS noise
+    values are the decoder-specific host LCG)."""
+    return backend.aac_device_prep()
 
 
 # Fallback-row ladder: keeps the (rare) fallback sideband's shape key
@@ -356,7 +351,7 @@ def analyze_batch_q_sharded(unpacked: list, sample_rate: int,
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     if mesh is None:
-        devices = np.array(jax.devices())
+        devices = np.array(backend.local_devices())
         mesh = Mesh(devices, axis_names=("dp",))
     n_dev = int(np.prod(mesh.devices.shape))
     if n_dev == 1 or len(unpacked) < n_dev:
@@ -395,9 +390,6 @@ def _batch_fn_q_sharded(mesh, n_channels: int, sample_rate: int, dtype):
     from jax.sharding import PartitionSpec as P
 
     from .decode import aac_prep
-
-    interpret = jax.default_backend() != "tpu"
-    del interpret  # prep_spectra is pure XLA — no Pallas to interpret
 
     def core(*a):
         spec = aac_prep.prep_spectra(

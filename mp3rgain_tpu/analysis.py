@@ -24,7 +24,7 @@ from .utils.jaxcache import ensure_compilation_cache
 
 ensure_compilation_cache()
 
-from . import mp4meta
+from . import backend, mp4meta
 from .decode import frontend
 from .ops import histogram as hi
 from .replaygain import (
@@ -106,13 +106,13 @@ def _single_track_fn(n_channels: int, sample_rate: int, dtype):
 
 @lru_cache(maxsize=None)
 def _single_track_fn_light(n_channels: int, sample_rate: int, dtype,
-                           nb: int, g_max: int, interpret: bool):
+                           nb: int, lanes: int, g_max: int, interpret: bool):
     from .parallel.runner import _analysis_core_light
 
     return jax.jit(
         partial(
             _analysis_core_light,
-            nb=nb, g_max=g_max,
+            nb=nb, lanes=lanes, g_max=g_max,
             n_channels=n_channels, sample_rate=sample_rate,
             dtype=dtype, interpret=interpret,
         )
@@ -122,16 +122,16 @@ def _single_track_fn_light(n_channels: int, sample_rate: int, dtype,
 def _analyze_mp3_on_device(path, dtype):
     """Whole-track device pipeline; only scalars return to host.
 
-    On a compiled single-chip TPU the Huffman stage also runs on device
-    (raw-bits manifest + Pallas entropy kernel, decode/entropy_kernel.py);
-    elsewhere the host decodes spectra (decode/frontend.unpack_file)."""
+    Where backend.device_entropy() says so (the GPU), the Huffman stage
+    also runs on device (raw-bits manifest + Pallas entropy kernel,
+    decode/entropy_kernel.py); elsewhere the host decodes spectra
+    (decode/frontend.unpack_file)."""
     from .parallel.runner import (
-        device_entropy_enabled,
         prepare_batch_arrays,
         prepare_batch_arrays_light,
     )
 
-    if device_entropy_enabled():
+    if backend.device_entropy():
         with open(path, "rb") as f:
             u = frontend.unpack_data_light_packed(f.read())
         if u.n == 0:
@@ -139,11 +139,10 @@ def _analyze_mp3_on_device(path, dtype):
         sr, nch = u.sample_rate, u.n_channels
         prep, rest, g_max = prepare_batch_arrays_light([u], nch)
         fn = _single_track_fn_light(
-            nch, sr, dtype, prep.nb, g_max,
-            jax.default_backend() != "tpu",
+            nch, sr, dtype, prep.nb, prep.lanes, g_max,
+            backend.interpret_kernels(),
         )
-        hist, loud_idx, peak = fn(prep.scalars, prep.buf, prep.meta,
-                                  prep.inv, *rest)
+        hist, loud_idx, peak = fn(*prep.device_args(), *rest)
         jax.block_until_ready((hist, loud_idx, peak))
         from .utils import bufpool
 
@@ -218,8 +217,8 @@ def analyze_album(files, track_index: int | None = None, dtype=jnp.float32) -> A
 def find_peak_amplitude(path: os.PathLike | str, dtype=jnp.float32) -> PeakAmplitudeResult:
     """True decoded peak over all channels (reference src/replaygain.rs:1140-1249).
 
-    Unlike the reference's decoder (which clips at ±1.0), the TPU decode
-    path reports the true unclipped peak — matching original mp3gain."""
+    Unlike the reference's decoder (which clips at ±1.0), the device
+    decode path reports the true unclipped peak — matching original mp3gain."""
     if _detect_file_type(path) == "aac":
         from . import aac
 

@@ -7,7 +7,7 @@ semantics, and output formats mirror the reference CLI
 (bare -o = TSV for mp3gain/beets compat, main.rs:273-297), warn-only unknown
 flags (main.rs:421-423), and the command priority order of main.rs:436-540.
 
-TPU knobs are long-flag only (--batch-size, --mesh) to keep the mp3gain
+Device knobs are long-flag only (--batch-size, --mesh) to keep the mp3gain
 short-flag namespace intact (SURVEY.md §5 config note).
 """
 
@@ -96,14 +96,14 @@ class Options:
     use_temp_file: bool = False
     assume_mpeg2: bool = False
 
-    # TPU batch-scan knobs (long flags only; the mp3gain short-flag
+    # Batch-scan knobs (long flags only; the mp3gain short-flag
     # namespace stays untouched, SURVEY.md §5).
     batch_mode: str = "auto"  # auto | always | never
     manifest: str | None = None
     # Reproduce the reference's symphonia F32 decoder ceiling: clamp
     # decoded peaks at 1.0 so TSV "Max Amplitude", -x output and the -k
     # cap match mp3rgain byte-for-byte on >1.0-peak files
-    # (/root/reference/src/main.rs:610-616). Off by default — the TPU
+    # (/root/reference/src/main.rs:610-616). Off by default — the device
     # decoder reports the true unclipped peak (analysis.py).
     clip_peak_compat: bool = False
 
@@ -387,7 +387,7 @@ _JSON_FIELD_ORDER = [
 # Sample rates whose published equal-loudness coefficient table row is
 # numerically degenerate (loudness collapses to the histogram floor).
 # The reference inherits the same 88200 Hz row and silently reports a
-# bogus gain (NOTES.md round-1 #6); we keep the numeric parity but warn.
+# bogus gain; we keep the numeric parity but warn.
 DEGENERATE_ANALYSIS_RATES = frozenset({88200})
 
 
@@ -899,7 +899,7 @@ def cmd_undo(files: list[Path], opts: Options) -> int:
 
 def _require_replaygain() -> None:
     if not replaygain.is_available():
-        _err("ReplayGain analysis requires the TPU analysis pipeline")
+        _err("ReplayGain analysis requires the JAX analysis pipeline")
         print("  (jax and the mp3rgain_tpu decode/ops modules must be importable)", file=sys.stderr)
         raise SystemExit(1)
 
@@ -1460,7 +1460,7 @@ def _apply_replaygain_aac(f: Path, result, opts: Options, warning_msg, original_
 
 def print_version() -> None:
     print(f"mp3rgain version {VERSION}")
-    print("A TPU-native mp3gain replacement")
+    print("A GPU-accelerated mp3gain replacement")
     print()
     print(f"Each gain step = {GAIN_STEP_DB} dB")
 
@@ -1469,7 +1469,7 @@ def print_usage() -> None:
     g = lambda s: colorize(s, Color.GREEN, bold=True)  # noqa: E731
     c = lambda s: colorize(s, Color.CYAN, bold=True)  # noqa: E731
     print(f"{g('mp3rgain')} version {VERSION}")
-    print("Lossless MP3 volume adjustment - a TPU-native mp3gain replacement")
+    print("Lossless MP3 volume adjustment - a GPU-accelerated mp3gain replacement")
     print()
     print(c("USAGE:"))
     print("    mp3rgain [OPTIONS] <FILES>...")
@@ -1526,7 +1526,7 @@ def print_usage() -> None:
     else:
         print()
         print(colorize("REPLAYGAIN:", Color.YELLOW, bold=True))
-        print("    -r and -a options require the TPU analysis pipeline (jax)")
+        print("    -r and -a options require the JAX analysis pipeline")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""TPU-native MP3 decode pipeline.
+"""MP3 decode pipeline: native front-end, JAX device back-end.
 
 - frontend: native C++ entropy stage (side info, scalefactors, Huffman,
   bit reservoir) producing dense granule tensors.

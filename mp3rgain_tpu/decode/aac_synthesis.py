@@ -1,4 +1,4 @@
-"""AAC device back-end: IMDCT + windowing + overlap-add on TPU.
+"""AAC device back-end: IMDCT + windowing + overlap-add on device.
 
 Consumes the native front-end's natural-order requantized spectra and
 produces PCM. Window sequences/shapes are handled with precomputed
@@ -26,6 +26,7 @@ from scipy.special import i0 as _bessel_i0
 import jax
 import jax.numpy as jnp
 
+from .. import backend
 from . import aac_frontend as af
 
 ONLY_LONG, LONG_START, EIGHT_SHORT, LONG_STOP = range(4)
@@ -115,7 +116,7 @@ def _decode_jit(spec, window_seq, window_shape, n_channels, dtype):
 
 def _decode_body(x, window_seq, window_shape, n_channels, dtype,
                  m_long, w_long, m_short):
-    with jax.default_matmul_precision("high"):
+    with jax.default_matmul_precision(backend.dsp_precision()):
         return _decode_inner(x, window_seq, window_shape, n_channels, dtype,
                              m_long, w_long, m_short)
 

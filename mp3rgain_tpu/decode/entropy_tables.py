@@ -1,26 +1,24 @@
-"""Device entropy-decode LUTs: MP3 Huffman tables packed for the MXU.
+"""Device entropy-decode LUTs: MP3 Huffman tables as a window cascade.
 
 The Pallas entropy kernel (entropy_kernel.py) decodes one (x, y) pair per
-lockstep step via one-hot(window) x LUT matmuls. The window cascade is
+lockstep step by per-lane table lookups. The window cascade is
 8 + 5 + 6 bits (= 19, the longest code, table 13):
 
   level 1: 8-bit primary window over 16 groups (table 0 + the 15 code
-           tables).  A 256-wide contraction is half the MXU passes of the
-           original 9-bit design, and the L2 group count barely moves
-           (192 -> 197 raw, 172 after dedup) because almost every 9-bit
-           code shares its 8-bit prefix with an existing longer code.
+           tables); almost every 9-bit code shares its 8-bit prefix with
+           an existing longer code, so the continuation groups stay few.
   level 2: 5-bit window over the per-prefix continuation groups (L2).
   level 3: 6-bit window over the rare >13-bit tails (L3).
 
 Continuation groups are deduplicated by *content* (many tables share
-identical code tails), keeping the L2 LUT within 3 MXU row-tiles.
+identical code tails), which keeps the tables small enough to stay in
+cache.
 
 count1 quads use a separate 6-bit window over a 2-group LUT (quad table
-A's longest code is 6 bits; table B is fixed 4 bits) — a (4, 64)
-contraction instead of sharing the big-values primary LUT.
+A's longest code is 6 bits; table B is fixed 4 bits).
 
-LUT layout (values all fit 0..255 so the int8/bf16 MXU paths are exact;
-fields are packed 2 rows per group as [ab, adv + 16*flag]):
+LUT layout (values all fit 0..255; fields are packed 2 columns per group
+as [ab, adv + 16*flag]; the kernel flattens each pair into one int32):
   LUT_A  (256, N_GROUPS_A*2): short code: ab = x + 16*y, adv = len, flag 0
                               long prefix: ab = l2 group id, adv = 8, flag 1
                               invalid: flag 3 (decoder overrun, matches

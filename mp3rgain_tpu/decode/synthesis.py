@@ -9,14 +9,12 @@ Pipeline (all jit-compatible, static shapes per call):
 Replaces the DSP stage of the reference's external decoder
 (symphonia-bundle-mp3; used at /root/reference/src/replaygain.rs:804-904).
 
-TPU-first design notes: the sample-rate band-table row is a static
-compile-time parameter (batches are bucketed by sample rate), so every
-per-sample table lookup is either a structural slice/select or a small
-one-hot matmul on the MXU. There are NO dynamic gathers or scatters in
-this path — on TPU those lower to serial while-loops and dominated early
-profiles by 100x. Alias reduction is pure slicing/flip arithmetic, the
-IMDCT is four (G*32, 18)@(18, 36) GEMMs selected by block-type mask, and
-the polyphase dewindowing is a 16-tap feature conv.
+Design notes: the sample-rate band-table row is a static compile-time
+parameter (batches are bucketed by sample rate), so every per-sample
+table lookup is either a structural slice/select or a gather with
+constant indices — integer-exact whatever the matmul precision. Alias
+reduction, IMDCT and windowing fold into three class-core GEMMs, and the
+polyphase synthesis into two more (precision: backend.dsp_precision).
 """
 
 from __future__ import annotations
@@ -29,6 +27,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .. import backend
 from . import frontend as fe
 from .tables import CLASS_OF_KIND, build_tables, row_tables
 
@@ -117,23 +116,26 @@ def _per_sample_const(masks, rows, dtype=None):
     return _select_by_class(masks, [r[None, :] for r in rows])
 
 
-# Exactness-critical matmuls (integer-valued one-hot selections) must not
-# be downcast by the TPU's default bf16 matmul precision. HIGH (bf16x3)
-# is sufficient: every operand is an integer below 2^16 (spectrum
-# magnitudes <= 8206, scalefactors, subblock gains) or a 0/1 selector,
-# and the hi+lo bf16 split represents 16-bit integers exactly, so each
-# product and the single-nonzero row sums are exact in float32.
-_EXACT = jax.lax.Precision.HIGH
-
-
 def _reorder(x, masks, rt, dtype):
     """Apply the layout permutation: identity (long), short, or mixed
-    (identity below sample 36, short above). One one-hot MXU matmul."""
-    perm = jnp.asarray(rt.perm_short_onehot, dtype)
-    x_perm = jnp.dot(x, perm.T, preferred_element_type=dtype, precision=_EXACT)
+    (identity below sample 36, short above). One constant-index gather:
+    exact for every spectrum value (|x| <= 8206), unlike a one-hot
+    matmul, which a TF32 or bf16 pass would round."""
+    del dtype
+    x_perm = jnp.take(x, jnp.asarray(rt.perm_short), axis=1)
     sample_lt36 = (jnp.arange(576) < 36)[None, :]
     x_mixed = jnp.where(sample_lt36, x, x_perm)
     return _select_by_class(masks, [x, x_perm, x_mixed])
+
+
+def _expand(values, index, masks):
+    """Per-sample expansion of per-granule values (scalefactor slots,
+    subblock-gain windows): values[:, index[class]] selected by layout
+    class — constant-index gathers, exact."""
+    return _select_by_class(
+        masks, [jnp.take(values, jnp.asarray(index[c]), axis=1)
+                for c in range(3)]
+    )
 
 
 def _requantize(b: GranuleBatch, rt, masks, dtype):
@@ -141,24 +143,8 @@ def _requantize(b: GranuleBatch, rt, masks, dtype):
     spec = b.spectrum.astype(dtype)
     spec = _reorder(spec, masks, rt, dtype)
 
-    scf = b.scf.astype(dtype)  # (G, 64), exact small ints
-    slot_oh = jnp.asarray(rt.slot_onehot, dtype)  # (3, 64, 576)
-    scf_s = _select_by_class(
-        masks,
-        [
-            jnp.dot(scf, slot_oh[c], preferred_element_type=dtype, precision=_EXACT)
-            for c in range(3)
-        ],
-    )
-    sbg = b.subblock_gain.astype(dtype)  # (G, 3)
-    win_oh = jnp.asarray(rt.win_onehot, dtype)
-    sbg_s = _select_by_class(
-        masks,
-        [
-            jnp.dot(sbg, win_oh[c], preferred_element_type=dtype, precision=_EXACT)
-            for c in range(3)
-        ],
-    )
+    scf_s = _expand(b.scf.astype(dtype), rt.slot, masks)  # (G, 576)
+    sbg_s = _expand(b.subblock_gain.astype(dtype), rt.win, masks)
     pre = _per_sample_const(masks, list(rt.pretab), dtype)
     short = _per_sample_const(masks, list(rt.is_short.astype(np.float32)), dtype)
 
@@ -196,15 +182,7 @@ def _stereo(b: GranuleBatch, xr, rt, masks, dtype):
     rzero = g0(b.rzero_other)[:, None]
     in_band = isf & (band_start >= rzero)
 
-    scf1 = b.scf[1::2].astype(dtype)
-    slot_oh = jnp.asarray(rt.slot_onehot, dtype)
-    is_pos = _select_by_class(
-        masks0,
-        [
-            jnp.dot(scf1, slot_oh[c], preferred_element_type=dtype, precision=_EXACT)
-            for c in range(3)
-        ],
-    )  # exact small ints in float
+    is_pos = _expand(b.scf[1::2].astype(dtype), rt.slot, masks0)
 
     # MPEG1 intensity: ratio = tan(is_pos * pi / 12); is_pos == 7 illegal.
     angle = is_pos * (np.pi / 12.0)
@@ -434,12 +412,7 @@ def _decode_jit(spectrum, scf, kind, sr_row_arr, global_gain, scalefac_scale,
     )
     rt = row_tables(sr_row)
     masks = _class_masks(b.kind)
-    # Near-f32 matmul compute throughout: bf16 default precision costs
-    # real loudness accuracy (~0.07 dB) through IMDCT/synthesis. HIGH
-    # (bf16x3) keeps loudness bins bit-equal to CPU on all test content
-    # (peaks within ~1e-5 relative) at ~7% less pipeline time than
-    # HIGHEST.
-    with jax.default_matmul_precision("high"):
+    with jax.default_matmul_precision(backend.dsp_precision()):
         xr = _requantize(b, rt, masks, dtype)
         xr = _stereo(b, xr, rt, masks, dtype)
         out18 = _imdct_overlap_fused(b, xr, masks, dtype)

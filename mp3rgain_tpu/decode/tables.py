@@ -247,8 +247,8 @@ def build_tables() -> DecodeTables:
 #
 # Batches are bucketed by sample rate, so the band-table row is static per
 # compiled pipeline; every per-sample table lookup then becomes either a
-# structural op or a small one-hot matmul on the MXU — no dynamic gathers
-# (which lower to serial while-loops on TPU).
+# structural op or a gather with compile-time-constant indices (exact,
+# whatever the matmul precision).
 #
 # Layout classes: 0 = long (block kinds 0/1/3), 1 = short (kind 2),
 # 2 = mixed (kind 4).
@@ -267,11 +267,10 @@ class RowTables:
     # layout equals identity below sample 36 and the short permutation
     # above it — see tables build; exploited by the device path).
     perm_short: np.ndarray  # (576,) int32
-    perm_short_onehot: np.ndarray  # (576, 576) f32, out = x @ P.T
-    # scf slot one-hots per class: samples = scf(G,64) @ OH (64, 576).
-    slot_onehot: np.ndarray  # (3, 64, 576) f32
-    # subblock-gain window one-hots per class: (3, 3, 576) f32.
-    win_onehot: np.ndarray
+    # scf slot of each sample per class: samples = scf[:, slot[c]].
+    slot: np.ndarray  # (3, 576) int32, values 0..63
+    # subblock-gain window of each sample per class.
+    win: np.ndarray  # (3, 576) int32, values 0..2
     # Per-sample constants per class:
     pretab: np.ndarray  # (3, 576) f32
     band_start: np.ndarray  # (3, 576) int32
@@ -282,29 +281,26 @@ class RowTables:
 def row_tables(sr_row: int) -> RowTables:
     t = build_tables()
     perm = t.reorder[sr_row, KIND_SHORT].astype(np.int32)
-    onehot = np.zeros((576, 576), dtype=np.float32)
-    onehot[np.arange(576), perm] = 1.0
     # The mixed reorder must equal identity below 36 / short above.
     pm = t.reorder[sr_row, KIND_MIXED]
     assert (pm[:36] == np.arange(36)).all()
     assert (pm[36:] == perm[36:]).all()
 
-    slot_oh = np.zeros((N_CLASSES, 64, 576), dtype=np.float32)
-    win_oh = np.zeros((N_CLASSES, 3, 576), dtype=np.float32)
+    slot = np.zeros((N_CLASSES, 576), dtype=np.int32)
+    win = np.zeros((N_CLASSES, 576), dtype=np.int32)
     pretab = np.zeros((N_CLASSES, 576), dtype=np.float32)
     band_start = np.zeros((N_CLASSES, 576), dtype=np.int32)
     is_short = np.zeros((N_CLASSES, 576), dtype=bool)
     for c, kind in enumerate(_CLASS_KIND_REP):
-        slot_oh[c, t.slot[sr_row, kind], np.arange(576)] = 1.0
-        win_oh[c, t.window[sr_row, kind], np.arange(576)] = 1.0
+        slot[c] = t.slot[sr_row, kind]
+        win[c] = t.window[sr_row, kind]
         pretab[c] = t.pretab[sr_row, kind]
         band_start[c] = t.band_start[sr_row, kind]
         is_short[c] = t.is_short[sr_row, kind]
     return RowTables(
         perm_short=perm,
-        perm_short_onehot=onehot,
-        slot_onehot=slot_oh,
-        win_onehot=win_oh,
+        slot=slot,
+        win=win,
         pretab=pretab,
         band_start=band_start,
         is_short=is_short,

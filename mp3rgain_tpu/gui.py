@@ -500,7 +500,7 @@ def _run_menu_action(state: AppState, scr, action: str) -> str | None:
         state.target_db = REPLAYGAIN_REFERENCE_DB
     elif action == "about":
         state.status_message = (
-            f"mp3rgui (TPU) {__version__} — lossless MP3/AAC volume "
+            f"mp3rgui (GPU) {__version__} — lossless MP3/AAC volume "
             f"adjustment, ReplayGain analysis on JAX"
         )
     elif action == "keys":
@@ -528,7 +528,7 @@ def ui_loop(state: AppState, scr) -> None:
         scr.erase()
         h, w = scr.getmaxyx()
         _render_menubar(state, scr, w, menu)
-        scr.addnstr(1, 0, f"mp3rgui (TPU) — target {state.target_db:.1f} dB "
+        scr.addnstr(1, 0, f"mp3rgui (GPU) — target {state.target_db:.1f} dB "
                           f"(each step = {GAIN_STEP_DB} dB)", w - 1, A_BOLD)
         scr.addnstr(2, 0, _HELP, w - 1)
         header = f"{'file':30s} {'status':9s} {'vol':>6s} {'clip':4s} {'trk':>6s} {'alb':>6s} {'steps':>5s}"

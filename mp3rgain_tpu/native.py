@@ -32,10 +32,9 @@ def _tune_malloc() -> None:
     """Keep large freed buffers in the heap instead of munmapping them.
 
     glibc mmaps allocations above ~128 KB and munmaps them on free, so
-    every scan wave re-faults its multi-MB manifest buffers at this VM
-    class's ~8-24 MB/s first-touch rate (NOTES.md). Raising the mmap
-    threshold and disabling trim measured 3.7 -> 1.7 ms/track on the
-    warm light walk. Trade-off: RSS stays at the high-water mark.
+    every scan wave would re-fault its multi-MB manifest buffers.
+    Raising the mmap threshold and disabling trim keeps them mapped.
+    Trade-off: RSS stays at the high-water mark.
     Opt out with MP3RGAIN_NO_MALLOC_TUNING=1."""
     import os
 

@@ -6,7 +6,7 @@ specification (identical to the reference's tables at
 /root/reference/src/replaygain.rs:106-526 and the canonical
 gain_analysis.c).
 
-Also provides the TPU-oriented factorization: the Yule denominator is
+Also provides the device-oriented factorization: the Yule denominator is
 factored into five second-order sections (pure-AR cascade) in float64 —
 the numerator stays as a single 11-tap FIR — giving an exactly equivalent
 filter whose recurrences are individually well-conditioned in float32.

@@ -1,8 +1,8 @@
 """Equal-loudness IIR filter as a blocked linear recurrence on device.
 
 The reference filters one sample at a time in float64
-(/root/reference/src/replaygain.rs:586-616). On TPU the recurrence is
-restructured exactly (no approximation) into MXU-friendly pieces.
+(/root/reference/src/replaygain.rs:586-616). On device the recurrence is
+restructured exactly (no approximation) into matmul-friendly pieces.
 
 Default path (MP3RGAIN_IIR_GROUP=1, gated by _group_ok conditioning):
 the WHOLE 10th-order Yule stage as one blocked direct-form solve —
@@ -36,6 +36,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .. import backend
 from .coeffs import DEGENERATE_RATES, DENORMAL_PREVENTION, filter_plan
 
 DEFAULT_BLOCK = 128
@@ -142,7 +143,7 @@ def _affine_prefix(v, a_tail: tuple, block: int, l2: int = 128):
     matmul for short tracks, associative scan of (M^l2, carry) affine
     pairs for long ones (NB2_DENSE_MAX). The (B, P, N) layout keeps the
     large block axis minor on every big tensor (a (B, N, P) layout
-    tile-pads P -> 128 on TPU; see _prefix_kernels)."""
+    pads the narrow P dim in memory; see _prefix_kernels)."""
     b, P, n = v.shape
     nb2 = -(-n // l2)
     dense = nb2 <= NB2_DENSE_MAX
@@ -204,8 +205,8 @@ def _group_kernels(b_taps: tuple, a_tail: tuple, block: int):
 
     Band maps the extended input block [x[-(K-1)], ..., x[-1], x[0..L-1]]
     to the FIR output f[t] = sum_k b[k] x[t-k]; T_h is the AR(P)
-    zero-state Toeplitz. Folding the FIR here avoids per-sample lane-shift
-    slices, which dominate TPU time by ~40x."""
+    zero-state Toeplitz. Folding the FIR here avoids per-sample shifted
+    slices."""
     L = block
     K = len(b_taps)
     th, g, m = _arP_kernels(a_tail, block)
@@ -243,9 +244,8 @@ def _group_apply(x, b_taps: tuple, a_tail: tuple, block: int):
 
     # Block carry state s = [y_{L-1}, ..., y_{L-P}], built TAP-MAJOR
     # (B, P, NB) via a one-hot column selector so no large tensor ever
-    # has P as its minor dim (P=10 tile-pads to 128 on TPU — 12.8x HBM;
-    # P separate 1-wide slices were 8x 1.6 GB remat temps on a 48x90s
-    # batch and OOM'd the compile).
+    # has P as its minor dim (a narrow minor dim pads in memory, and P
+    # separate 1-wide slices become large rematerialized temporaries).
     sel = np.zeros((L, P))
     for i in range(P):
         sel[L - 1 - i, i] = 1.0
@@ -286,12 +286,9 @@ def _equal_loudness_jit(x, sample_rate: int, block: int):
     plan = filter_plan(sample_rate)
     dtype = x.dtype
     y = x
-    # The blocked recurrences cancel heavily; TPU's default bf16 matmul
-    # precision costs ~0.05 dB of loudness accuracy. HIGH (bf16x3,
-    # ~f32-quality) keeps loudness bins bit-equal to the CPU path on all
-    # test content; worst-case drift is one 0.01 dB histogram bin, 5x
-    # inside the +-0.05 dB budget, and is ~25% faster than HIGHEST.
-    with jax.default_matmul_precision("high"):
+    # The blocked recurrences cancel heavily, so a plain bf16 pass costs
+    # ~0.05 dB of loudness; the shared DSP precision holds the budget.
+    with jax.default_matmul_precision(backend.dsp_precision()):
         y = _equal_loudness_body(y, plan, dtype, block)
     return y
 
@@ -312,7 +309,7 @@ def _equal_loudness_body(y, plan, dtype, block):
         # Grouped path: the whole 10th-order Yule stage as ONE blocked
         # direct-form solve (matches the reference's own formulation,
         # src/replaygain.rs:586-599) instead of 5 sequential biquad
-        # GEMM passes — ~2.5x fewer IIR FLOPs on the MXU.
+        # GEMM passes — ~2.5x fewer IIR FLOPs.
         from .coeffs import YULE_A
 
         a_tail = tuple(float(c) for c in YULE_A[plan.sample_rate][1:])

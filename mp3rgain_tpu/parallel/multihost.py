@@ -1,10 +1,10 @@
 """Multi-host (DCN) data parallelism for library scans.
 
-SURVEY.md §2.6 scopes the collective backend as "TPU ICI (intra-slice) /
-DCN (multi-slice) via XLA collectives". Single-host DP rides the ICI
-mesh (runner.py); this module extends the same album-union collectives
-across ``jax.distributed`` process groups, where XLA routes the psum /
-pmax segments over DCN (or gloo TCP on the CPU test platform).
+Single-host data parallelism rides one process's local devices
+(runner.py's dp mesh, NCCL between the GPUs of a host); this module
+extends the same album-union collectives across ``jax.distributed``
+process groups, where XLA routes the psum / pmax over the network
+(NCCL between GPU hosts, gloo TCP on the CPU test platform).
 
 Architecture — deliberately minimal cross-host traffic:
 
@@ -21,7 +21,10 @@ Architecture — deliberately minimal cross-host traffic:
   ``LoudnessHistogram::accumulate`` (src/replaygain.rs:658-662) and the
   album-peak max (src/replaygain.rs:1056).
 
-Usage (one process per host)::
+Usage: one process per host, owning all of that host's GPUs (its
+local dp mesh), or one process per GPU with ``CUDA_VISIBLE_DEVICES``
+naming a different card for each. Two processes never share a card: a
+JAX process reserves most of a card's memory when it first uses it::
 
     from mp3rgain_tpu.parallel import multihost
     multihost.initialize("host0:8476", num_processes=4, process_id=rank)
@@ -29,12 +32,10 @@ Usage (one process per host)::
     ... analyze `mine` with scan/runner as usual ...
     hist, peak = multihost.album_union_global(local_hist, local_peak)
 
-On CPU test platforms the collectives use gloo TCP
-(``jax_cpu_collectives_implementation``); on TPU pods
-``jax.distributed`` picks up the TPU topology and XLA emits DCN
-collectives natively. Validated by ``__graft_entry__.dryrun_multihost``
-(2-process CPU group, album union asserted bit-equal to single-process)
-and tests/test_multihost.py.
+Validated by ``__graft_entry__.dryrun_multihost`` (2-process CPU group,
+album union asserted bit-equal to single-process) and
+tests/test_multihost.py; a multi-process NCCL group has not run on
+GPUs yet.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ def initialize(coordinator_address: str, num_processes: int,
                process_id: int) -> None:
     """Join a jax.distributed process group.
 
-    Must run before any other JAX backend use in the process. On the
-    CPU platform the gloo TCP collectives implementation is selected
-    (the pure-XLA CPU backend has no cross-process collectives).
+    Must run before any other JAX backend use in the process. The CPU
+    backend's cross-process collectives use gloo TCP (it has no other
+    implementation); GPU collectives use NCCL whatever this setting.
     """
     import jax
 
@@ -63,11 +64,7 @@ def initialize(coordinator_address: str, num_processes: int,
     if _initialized:
         return
     if num_processes > 1:
-        try:
-            if jax.config.jax_platforms in ("cpu", None):
-                jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except AttributeError:  # older jax: no such knob, TPU-only path
-            pass
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
@@ -92,8 +89,8 @@ def is_multihost() -> bool:
 
 def maybe_initialize_from_env() -> bool:
     """Join a process group from the MP3RGAIN_COORDINATOR /
-    MP3RGAIN_NUM_PROCESSES / MP3RGAIN_PROCESS_ID environment (TPU knobs
-    stay out of the mp3gain short-flag namespace, SURVEY.md §5).
+    MP3RGAIN_NUM_PROCESSES / MP3RGAIN_PROCESS_ID environment (device
+    knobs stay out of the mp3gain short-flag namespace, SURVEY.md §5).
     Returns True when a >1-process group is (now) active.
 
     Distributed CLI semantics: launch the same mp3rgain command on every

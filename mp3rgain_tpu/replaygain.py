@@ -4,7 +4,7 @@ Mirrors the reference surface (/root/reference/src/replaygain.rs:929-1074,
 1119-1257): analyze_track(_with_index), analyze_album(_with_index),
 find_peak_amplitude, is_available, ReplayGainResult, AlbumGainResult.
 
-The analysis pipeline is the TPU-native path: native C++ entropy decode
+The analysis pipeline is the device path: native C++ entropy decode
 front-end → JAX decode back-end → equal-loudness IIR + RMS windows +
 loudness histogram on device (see mp3rgain_tpu.ops / .decode / .analysis).
 """

@@ -26,6 +26,7 @@ for name in [
     "lame_set_VBR_q",
     "lame_set_quality",
     "lame_set_bWriteVbrTag",
+    "lame_set_disable_reservoir",
 ]:
     fn = getattr(_lame, name)
     fn.restype = ctypes.c_int
@@ -74,12 +75,15 @@ def encode_mp3(
     vbr: bool = False,
     vbr_quality: int = 4,
     write_vbr_tag: bool = True,
+    reservoir: bool = True,
 ) -> bytes:
     """Encode int16 PCM (shape (n,) mono or (n, 2) stereo) to an MP3 buffer.
 
     When write_vbr_tag is set, the leading placeholder frame is patched with
     the final LAME Xing/Info tag, like lame's file writer does — this gives
     fixtures a realistic VBR-header frame to exercise the Xing-skip logic.
+    reservoir=False turns the bit reservoir off, so every frame is
+    self-contained and any sequence of whole frames is a valid stream.
     """
     pcm = np.asarray(pcm)
     if pcm.dtype != np.int16:
@@ -101,6 +105,7 @@ def encode_mp3(
         _lame.lame_set_mode(gf, MODE_MONO if channels == 1 else mode)
         _lame.lame_set_quality(gf, 2)
         _lame.lame_set_bWriteVbrTag(gf, 1 if write_vbr_tag else 0)
+        _lame.lame_set_disable_reservoir(gf, 0 if reservoir else 1)
         if vbr:
             _lame.lame_set_VBR(gf, VBR_DEFAULT)
             _lame.lame_set_VBR_q(gf, vbr_quality)
@@ -166,92 +171,15 @@ def encode_m4a_multi(
     """Encode one or more (pcm, sample_rate) pairs as audio tracks of a
     single M4A file (AAC-LC in MP4). Multi-track files exercise the CLI's
     `-i` track selection (reference src/replaygain.rs:838-851)."""
-    import struct as st
-
     from . import avcodec
+    from .corpus import adts_frames, mux_m4a
 
-    def box(t, payload):
-        return st.pack(">I", 8 + len(payload)) + t + payload
-
-    def full_box(t, payload, version=0, flags=0):
-        return box(t, st.pack(">I", (version << 24) | flags) + payload)
-
-    def desc(tag, payload):
-        return bytes([tag, len(payload)]) + payload
-
-    track_frames = []
-    traks = []
-    for track_id, (pcm, sample_rate) in enumerate(tracks, start=1):
+    muxed = []
+    for pcm, sample_rate in tracks:
         adts = avcodec.encode_adts(np.asarray(pcm, np.float32), sample_rate, bitrate)
-        # Split the ADTS stream back into raw AAC frames.
-        frames = []
-        pos = 0
-        while pos + 7 <= len(adts):
-            full = ((adts[pos + 3] & 0x3) << 11) | (adts[pos + 4] << 3) | (adts[pos + 5] >> 5)
-            frames.append(adts[pos + 7 : pos + full])
-            pos += full
         channels = 1 if np.asarray(pcm).ndim == 1 else np.asarray(pcm).shape[1]
-
-        sr_index = {96000: 0, 88200: 1, 64000: 2, 48000: 3, 44100: 4, 32000: 5,
-                    24000: 6, 22050: 7, 16000: 8, 12000: 9, 11025: 10, 8000: 11}[sample_rate]
-        asc = bytes([(2 << 3) | (sr_index >> 1), ((sr_index & 1) << 7) | (channels << 3)])
-
-        dsi = desc(0x05, asc)
-        dec_conf = desc(0x04, bytes([0x40, 0x15, 0, 0, 0]) + st.pack(">II", 0, 0) + dsi)
-        sl = desc(0x06, b"\x02")
-        es = desc(0x03, st.pack(">HB", track_id, 0) + dec_conf + sl)
-        esds = full_box(b"esds", es)
-
-        mp4a = box(
-            b"mp4a",
-            bytes(6) + st.pack(">H", 1) + bytes(8)
-            + st.pack(">HHI", channels, 16, 0) + st.pack(">I", sample_rate << 16)
-            + esds,
-        )
-        stsd = full_box(b"stsd", st.pack(">I", 1) + mp4a)
-        n = len(frames)
-        stts = full_box(b"stts", st.pack(">III", 1, n, 1024))
-        stsc = full_box(b"stsc", st.pack(">IIII", 1, 1, n, 1))
-        stsz = full_box(b"stsz", st.pack(">II", 0, n) + b"".join(st.pack(">I", len(f)) for f in frames))
-        stco = full_box(b"stco", st.pack(">II", 1, 0))  # offset patched below
-        stbl = box(b"stbl", stsd + stts + stsc + stsz + stco)
-        dref = full_box(b"dref", st.pack(">I", 1) + full_box(b"url ", b"", flags=1))
-        minf = box(b"minf", full_box(b"smhd", bytes(4)) + box(b"dinf", dref) + stbl)
-        duration = n * 1024
-        mdhd = full_box(b"mdhd", st.pack(">IIIIHH", 0, 0, sample_rate, duration, 0x55C4, 0))
-        hdlr = full_box(b"hdlr", bytes(4) + b"soun" + bytes(12) + b"\x00")
-        mdia = box(b"mdia", mdhd + hdlr + minf)
-        tkhd = full_box(
-            b"tkhd", st.pack(">IIIII", 0, 0, track_id, 0, duration) + bytes(60), flags=7
-        )
-        traks.append(box(b"trak", tkhd + mdia))
-        track_frames.append(frames)
-
-    sr0 = tracks[0][1]
-    dur0 = len(track_frames[0]) * 1024
-    mvhd = full_box(
-        b"mvhd",
-        st.pack(">IIII", 0, 0, sr0, dur0) + st.pack(">I", 0x00010000)
-        + st.pack(">H", 0x0100) + bytes(10)
-        + st.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
-        + bytes(24) + st.pack(">I", len(tracks) + 1),
-    )
-    moov = box(b"moov", mvhd + b"".join(traks))
-    ftyp = box(b"ftyp", b"M4A " + st.pack(">I", 0) + b"M4A mp42isom")
-    payloads = [b"".join(frames) for frames in track_frames]
-    mdat = box(b"mdat", b"".join(payloads))
-
-    out = bytearray(ftyp + moov + mdat)
-    # Patch each trak's single chunk offset to its payload position in mdat
-    # (trak order == payload order).
-    offset = len(ftyp) + len(moov) + 8
-    pos = 0
-    for payload in payloads:
-        stco_pos = out.find(b"stco", pos)
-        st.pack_into(">I", out, stco_pos + 12, offset)
-        offset += len(payload)
-        pos = stco_pos + 4
-    return bytes(out)
+        muxed.append((adts_frames(adts), sample_rate, channels))
+    return mux_m4a(muxed)
 
 
 def generate_standard_fixtures(out_dir: os.PathLike | str) -> Path:

@@ -1,9 +1,9 @@
 """Reusable numpy buffer pool for the host→device pack stages.
 
-First-touch page faults on this class of VM run at ~8-24 MB/s (measured,
-NOTES.md): any pipeline that allocates a fresh 100+ MB manifest per batch
-while the previous batch's manifest is still alive (in flight to the
-device) spends more time faulting pages than packing bits. Recycling the
+First-touch page faults can cost more than the packing itself: a
+pipeline that allocates a fresh 100+ MB manifest per batch while the
+previous batch's manifest is still alive (in flight to the device) can
+spend more time faulting pages than packing bits. Recycling the
 arrays keeps the pages warm; in steady state a scan touches no new pages
 at all.
 

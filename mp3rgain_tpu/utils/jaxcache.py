@@ -1,10 +1,15 @@
 """Persistent XLA compilation cache.
 
-Cold library scans are compile-bound on this class of runtime (a
-120-track mixed-format scan measured ~440 s of remote compiles vs ~19 s
-of actual work), and every fresh process used to pay it again. JAX's
-persistent cache stores serialized executables keyed by computation
-hash, so the second process reuses them.
+A fresh process otherwise recompiles every analysis pipeline it runs
+(the beets deployment starts one process per album). JAX's persistent
+cache stores serialized executables keyed by computation hash, so the
+next process reuses them.
+
+Where the cache lives:
+  - ``JAX_COMPILATION_CACHE_DIR``, when set (JAX reads it itself; this
+    module then sets nothing);
+  - otherwise ``<checkout>/.cache/xla`` — a fixed path, because the
+    directory is part of what a later process must find again.
 
 Called from the analysis entry modules (not the package __init__: pure
 bitstream operations must not pay the jax import).
@@ -14,28 +19,28 @@ from __future__ import annotations
 
 import os
 
+REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+DEFAULT_CACHE_DIR = os.path.join(REPO_ROOT, ".cache", "xla")
+
 _DONE = False
 
 
-def ensure_compilation_cache() -> None:
-    """Point jax at a persistent on-disk executable cache (idempotent).
+def cache_dir() -> str:
+    """The directory the compilation cache uses in this process."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
 
-    Opt out with MP3RGAIN_NO_COMPILE_CACHE=1; relocate with
-    MP3RGAIN_COMPILE_CACHE_DIR."""
+
+def ensure_compilation_cache() -> None:
+    """Point jax at the persistent executable cache (idempotent)."""
     global _DONE
-    if _DONE or os.environ.get("MP3RGAIN_NO_COMPILE_CACHE"):
+    if _DONE:
         return
     _DONE = True
-    try:
-        import jax
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
 
-        cache_dir = os.environ.get("MP3RGAIN_COMPILE_CACHE_DIR") or os.path.join(
-            os.path.expanduser("~"), ".cache", "mp3rgain_tpu", "xla"
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        # Cache is an optimization only — any failure (read-only home,
-        # old jax) must never break analysis.
-        pass
+    os.makedirs(DEFAULT_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)

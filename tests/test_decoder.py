@@ -1,4 +1,4 @@
-"""Differential decoder tests: TPU decode pipeline vs the libmpg123 oracle.
+"""Differential decoder tests: device decode pipeline vs the libmpg123 oracle.
 
 Mirrors the reference's differential-testing strategy (tier 4,
 scripts/compatibility-test.sh) applied to the decode path: every fixture

@@ -123,3 +123,72 @@ def test_truncated_stream_no_crash():
     pcm = fixtures.sine_pcm(44100, seconds=0.3, channels=2)
     data = fixtures.encode_mp3(pcm, 44100, bitrate=128)
     _assert_matches(data[: len(data) // 2], "truncated")
+
+
+def _noise_and_tone_tracks():
+    """Loud noise (long codes, escapes, ~288 steps per granule) and a
+    quiet tone (a few big-value pairs) — very unequal step counts."""
+    rng = np.random.default_rng(3)
+    sr = 44100
+    n = int(sr * 0.25)
+    loud = np.clip(rng.standard_normal(n) * 0.6, -1, 1)
+    quiet = 0.002 * np.sin(2 * np.pi * 440 * np.arange(n) / sr)
+    out = []
+    for wave in (loud, quiet):
+        pcm = np.clip(wave * 32767, -32768, 32767).astype(np.int16)
+        out.append(fixtures.encode_mp3(np.stack([pcm, pcm], axis=1), sr,
+                                       bitrate=320))
+    return out
+
+
+@pytest.mark.parametrize("lanes", [32, 256])
+def test_kernel_block_sizes(lanes):
+    """Other program widths decode identically (multi-track input)."""
+    datas = _noise_and_tone_tracks()
+    fulls = [fe.unpack_data(d) for d in datas]
+    lights = [fe.unpack_data_light(d) for d in datas]
+    spec, big_end, c1end, ok = ek.decode_spectra(
+        [u.md for u in lights], [u.meta for u in lights], lanes=lanes,
+        interpret=True,
+    )
+    full_spec = np.concatenate([f.spectrum for f in fulls])
+    valid = np.concatenate([f.info[:, fe.VALID] == 1 for f in fulls])
+    assert np.array_equal(np.asarray(spec)[valid], full_spec[valid])
+    assert np.array_equal(
+        np.asarray(c1end)[valid],
+        np.concatenate([f.info[:, fe.COUNT1_END] for f in fulls])[valid],
+    )
+
+
+def test_kernel_block_with_unequal_step_counts():
+    """One program whose lanes need very different step counts: the
+    short lanes must stop and stay put while the long ones run on."""
+    datas = _noise_and_tone_tracks()
+    lights = [fe.unpack_data_light(d) for d in datas]
+    meta = np.concatenate([u.meta for u in lights])
+    bvp = meta[:, fe.LM_BVP]
+    assert len(meta) <= 256 and bvp.max() - bvp.min() > 150
+    p = ek.prepare_batch([u.md for u in lights], [u.meta for u in lights],
+                         lanes=256)
+    assert p.nb == 1  # every lane in the same program
+    for d in datas:
+        _assert_matches(d, "unequal")
+    full = np.concatenate([fe.unpack_data(d).spectrum for d in datas])
+    spec, *_ = ek.decode_spectra([u.md for u in lights],
+                                 [u.meta for u in lights], lanes=256,
+                                 interpret=True)
+    assert np.array_equal(np.asarray(spec), full)
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_the_card_matches_host(gpu_device):
+    """The Triton-compiled kernel (no interpret mode) on a GPU."""
+    import jax
+
+    data = _noise_and_tone_tracks()[0]
+    full = fe.unpack_data(data)
+    light = fe.unpack_data_light(data)
+    with jax.default_device(gpu_device):
+        spec, *_ = ek.decode_spectra(light.md, light.meta, interpret=False)
+    valid = full.info[:, fe.VALID] == 1
+    assert np.array_equal(np.asarray(spec)[valid], full.spectrum[valid])

@@ -13,7 +13,6 @@ import pytest
 
 pytest.importorskip("jax")
 
-from mp3rgain_tpu.decode import entropy_kernel as ek  # noqa: E402
 from mp3rgain_tpu.decode import frontend as fe  # noqa: E402
 from mp3rgain_tpu.parallel import runner as pr  # noqa: E402
 from mp3rgain_tpu.testing import craft, fixtures  # noqa: E402
@@ -74,24 +73,19 @@ def test_batch_prep_identical_for_dense_and_packed_inputs():
     assert g1 == g2
     for a, b in zip(r1, r2):
         assert np.array_equal(np.asarray(a), np.asarray(b))
-    for f in ("scalars", "meta", "inv"):
+    for f in ("woff", "rows", "meta"):
         assert np.array_equal(getattr(p1, f), getattr(p2, f)), f
-    # buf comes from the shared pool and its padding regions carry stale
-    # bytes by design ("fully overwrites every in-use region; the
-    # unwritten tail pad is never read") — compare each real lane's live
-    # word extent, which is exactly what the kernel may read.
+    # buf comes from the shared pool and its tail past the last window
+    # carries stale bytes by design — compare each real lane's live word
+    # extent, which is exactly what the kernel may read.
     meta_all = np.concatenate([ud.meta] * 5)
     bits = meta_all[:, fe.LM_P0] + meta_all[:, fe.LM_P23]
     nwords = np.minimum((bits + 95) // 32, fe.MD_STRIDE // 4)
-    nsg = ek.LANES // ek.SUBG
+    lane_of = np.argsort(p1.rows)
     for src in range(p1.n):
-        pos = int(p1.inv[src])
-        b, l = divmod(pos, ek.LANES)
-        s, li = divmod(l, ek.SUBG)
-        off = int(p1.scalars[b, 3 + s])
-        ng = (int(nwords[src]) + 7) // 8
-        a = p1.buf[off : off + ng, :, li].ravel()[: int(nwords[src])]
-        c = p2.buf[off : off + ng, :, li].ravel()[: int(nwords[src])]
+        off = int(p1.woff[lane_of[src]])
+        a = p1.buf[off : off + int(nwords[src])]
+        c = p2.buf[off : off + int(nwords[src])]
         assert np.array_equal(a, c), src
     bufpool.give(p1.buf, p1.meta, r1[1], r1[6])
     bufpool.give(p2.buf, p2.meta, r2[1], r2[6])

@@ -148,7 +148,7 @@ def test_ui_loop_renders_and_quits(state):
     scr = FakeScreen(["q"])
     gui.ui_loop(state, scr)
     out = scr.text()
-    assert "mp3rgui (TPU)" in out
+    assert "mp3rgui (GPU)" in out
     assert "test_mono.mp3" in out and "test_joint_stereo.mp3" in out
     assert scr.refreshes >= 1
 
@@ -311,7 +311,7 @@ def test_menu_options_target_and_help(state):
     # Help -> About
     scr = FakeScreen(["m", gui.KEY_LEFT, 10, "q"])
     gui.ui_loop(state, scr)
-    assert "mp3rgui (TPU)" in state.status_message
+    assert "mp3rgui (GPU)" in state.status_message
     # The target readout is visible on the menu bar row.
     last = scr.frames[-1] if scr.frames else scr.cells
     row0 = " ".join(c[2] for c in last if c[0] == 0)

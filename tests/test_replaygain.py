@@ -175,7 +175,7 @@ def test_affine_prefix_long_track_scan_level2():
     block, l2 = 128, 128
     n = iir.NB2_DENSE_MAX * l2 + 513  # forces the scan path
     # _affine_prefix takes tap-major (B, P, N) (the (B, N, P) layout
-    # tile-padded P -> 128 on TPU and OOM'd large batches).
+    # pads the narrow P dim in memory).
     v = rng.standard_normal((1, 2, n)).astype(np.float64)
 
     out = np.asarray(iir._affine_prefix(jnp.asarray(v), a_tail, block, l2))

@@ -8,7 +8,7 @@ import pytest
 
 pytest.importorskip("jax")
 
-from mp3rgain_tpu import cli, scan  # noqa: E402
+from mp3rgain_tpu import backend, cli, scan  # noqa: E402
 from mp3rgain_tpu.ops import histogram as hi  # noqa: E402
 
 
@@ -200,7 +200,7 @@ def test_aac_scan_streams_batches(tmp_path):
 
 
 def test_oom_dispatch_halves_and_recovers(library, monkeypatch):
-    """A RESOURCE_EXHAUSTED dispatch (shared-chip HBM pressure window)
+    """A RESOURCE_EXHAUSTED dispatch (device memory pressure)
     must degrade to smaller synchronous batches, not kill the scan."""
     from mp3rgain_tpu import parallel as pr
     from mp3rgain_tpu.parallel import runner as rmod
@@ -209,7 +209,7 @@ def test_oom_dispatch_halves_and_recovers(library, monkeypatch):
     dispatch_sizes = []
     # Patch the same entry point analyze_library selects (dispatch_heavy
     # on the CPU test mesh, the light paths under device entropy).
-    if not rmod.use_device_entropy(runner):
+    if not backend.device_entropy():
         name = "dispatch_heavy"
     elif runner.n_devices > 1:
         name = "dispatch_light_sharded"
@@ -222,7 +222,7 @@ def test_oom_dispatch_halves_and_recovers(library, monkeypatch):
         dispatch_sizes.append(len(ups))
         if len(ups) > 2 and fails["left"] > 0:
             fails["left"] -= 1
-            raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error")
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of device memory")
         return real(ups, sr, nch)
 
     monkeypatch.setattr(runner, name, flaky)
@@ -242,7 +242,7 @@ def test_oom_dispatch_halves_and_recovers(library, monkeypatch):
 def test_scan_plan_pins_class_shapes(library, monkeypatch):
     """Big scans pre-plan: a native header probe pins one compile key
     per length class and the walk leads with each class's first batch
-    (cold remote compiles all start early). Planned and unplanned walks
+    (cold compiles all start early). Planned and unplanned walks
     must produce identical results."""
     import jax
     from jax.sharding import Mesh
@@ -284,16 +284,16 @@ def test_scan_plan_pins_class_shapes(library, monkeypatch):
 
 
 def test_compile_crash_isolates_not_dies(library, monkeypatch):
-    """A remote-compile-helper crash (INTERNAL / HTTP 500 — observed
-    when buffer assignment exhausts HBM during AOT compilation) is the
-    same pressure class as RESOURCE_EXHAUSTED: halve, retry once at
-    n=1, then isolate the stubborn track instead of killing the scan."""
+    """A batch whose compile exhausts device memory (RESOURCE_EXHAUSTED
+    from buffer assignment) is retried by halving, once more at n=1,
+    and then the stubborn track is isolated instead of killing the
+    scan."""
     from mp3rgain_tpu import parallel as pr
     from mp3rgain_tpu.parallel import runner as rmod
 
     monkeypatch.setenv("MP3RGAIN_PRESSURE_BACKOFF_S", "0")
     runner = pr.MeshRunner()
-    if not rmod.use_device_entropy(runner):
+    if not backend.device_entropy():
         name = "dispatch_heavy"
     elif runner.n_devices > 1:
         name = "dispatch_light_sharded"
@@ -309,8 +309,8 @@ def test_compile_crash_isolates_not_dies(library, monkeypatch):
             poisoned["u"] = ups[0]
         if any(u is poisoned["u"] for u in ups):
             raise RuntimeError(
-                "INTERNAL: http://127.0.0.1:8103/remote_compile: "
-                "HTTP 500: tpu_compile_helper subprocess exit code 1"
+                "RESOURCE_EXHAUSTED: Failed to allocate buffers while "
+                "compiling the analysis pipeline"
             )
         return real(ups, sr, nch)
 
